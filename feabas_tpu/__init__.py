@@ -1,6 +1,7 @@
-"""feabas_tpu: TPU-native elastic stitching & 3D alignment for EM connectomics.
+"""feabas_tpu: accelerator-native elastic stitching & 3D alignment for EM
+connectomics.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of FEABAS
+A ground-up JAX/XLA rebuild of the capabilities of FEABAS
 (YuelongWu/feabas). See ARCHITECTURE.md for the design.
 """
 

@@ -708,8 +708,10 @@ class Aligner:
             # link-disconnected components are independent: fan them out
             # (whole components go to remote nodes when a remote framework
             # is configured; their windows then run locally on the node)
-            from feabas_tpu.concurrent import submit_to_workers
-            fw = slide.pop('parallel_framework', None)
+            from feabas_tpu.concurrent import (device_framework,
+                                               submit_to_workers)
+            # window solves run on the device: local workers are threads
+            fw = device_framework(slide.pop('parallel_framework', None))
             args = []
             for comp in components:
                 sub = Stack(section_list=comp, mesh_dir=self.mesh_dir,

@@ -4,9 +4,9 @@ One entry point, :func:`submit_to_workers`, yields results as they complete
 from interchangeable backends (reference: ``feabas/concurrent.py:30-182``):
 
 - ``process``: spawned ``ProcessPoolExecutor`` (default; isolates native
-  library state and keeps the TPU runtime out of workers),
-- ``thread``: ``ThreadPoolExecutor`` (for IO-bound fan-out that must share
-  the in-process JAX device),
+  library state) for host-only work,
+- ``thread``: ``ThreadPoolExecutor`` (for fan-out that must share the
+  in-process JAX device; see :func:`device_framework`),
 - ``serial``: in-line execution (num_workers<=1, tests, nested pools),
 - ``slurm``: multi-node batch scheduling — jobs pickle to a shared spool
   directory, an ``sbatch``-submitted script runs
@@ -30,6 +30,16 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor, as_compl
 from feabas_tpu import config
 
 REMOTE_FRAMEWORKS = ('slurm',)
+
+
+def device_framework(framework=None):
+    """Framework for jobs that run device programs. A JAX process
+    reserves most of the accelerator's memory when it first uses it, so
+    spawned local workers cannot share the card: ``process`` becomes
+    ``thread`` (one process owns the card; JAX dispatch is thread-safe).
+    Remote frameworks keep their nodes, each with its own card."""
+    framework = framework or config.parallel_framework()
+    return 'thread' if framework == 'process' else framework
 
 
 def _in_daemon_process():

@@ -34,6 +34,20 @@ def _repo_config_dir():
     return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'configs')
 
 
+def enable_compile_cache():
+    """Turn on JAX's persistent compilation cache for an entry point.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and
+    nothing is set here; otherwise the cache lives in ``.jax_cache`` at
+    the root of the checkout. Returns the directory used, or None."""
+    if os.environ.get('JAX_COMPILATION_CACHE_DIR'):
+        return None
+    import jax
+    path = os.path.join(os.path.dirname(_repo_config_dir()), '.jax_cache')
+    jax.config.update('jax_compilation_cache_dir', path)
+    return path
+
+
 def default_configuration_folder():
     env = os.environ.get('FEABAS_TPU_CONFIG_DIR', None)
     if env:
@@ -68,11 +82,7 @@ def load_yaml_configs(file_default, file_user=None):
 def _general_settings_cached(config_dir):
     conf = storage.load_yaml(os.path.join(config_dir, 'general_configs.yaml'), default={})
     if conf.get('cpu_budget', None) is None:
-        try:
-            import psutil
-            conf['cpu_budget'] = psutil.cpu_count(logical=False) or os.cpu_count()
-        except ImportError:
-            conf['cpu_budget'] = os.cpu_count()
+        conf['cpu_budget'] = os.cpu_count()
     return conf
 
 
@@ -130,7 +140,7 @@ def device_render():
 def render_group_cap():
     """general_configs ``device.render_group_cap``: blocks per batched
     device render dispatch; 'auto' -> link-probe-driven (1 on slow
-    tunnels, 4 on local links — see ops.render.resolve_group_cap)."""
+    links, 4 on local links — see ops.render.resolve_group_cap)."""
     dev = general_settings().get('device', {}) or {}
     v = dev.get('render_group_cap', 'auto')
     return v if isinstance(v, str) else int(v)

@@ -64,3 +64,10 @@ FFT_CONF_MIRROR = 2
 DEFAULT_RESOLUTION = 4.0   # nm / pixel at mip0
 DEFAULT_THICKNESS = 30.0   # nm section thickness
 EPSILON0 = 1e-5
+
+# precision of every matrix contraction in the device programs (FEM
+# element math, CG, coarse solves, DFT upsampling, descriptor matmuls):
+# full float32 products. A float32 dot at default precision may run in
+# TF32 on the GPU's tensor cores (about three decimal digits), which
+# biases subpixel peaks and stalls CG at f32 solve tolerances.
+MATMUL_PRECISION = 'highest'

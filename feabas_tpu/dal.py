@@ -8,7 +8,6 @@ processes rebuild them from specs.
 
 import json
 
-import cv2
 import numpy as np
 
 from feabas_tpu import common, storage
@@ -17,6 +16,7 @@ from feabas_tpu.utils.spatial_index import GridIndex
 
 
 def _apply_clahe(img, cliplimit=2.0):
+    import cv2
     clahe = cv2.createCLAHE(clipLimit=cliplimit, tileGridSize=(8, 8))
     if img.ndim == 2:
         return clahe.apply(img)
@@ -156,7 +156,7 @@ class AbstractImageLoader:
         img = self._cache.get(path)
         if img is not None:
             return img
-        img = common.imread(path, flag=cv2.IMREAD_UNCHANGED)
+        img = common.imread(path, flag=common.IMREAD_UNCHANGED)
         if img is None:
             raise RuntimeError(f'failed to read {path}')
         img = self._apply_tf(img, path)
@@ -252,7 +252,7 @@ class StaticImageLoader(AbstractImageLoader):
             return out
         # cache miss: read the file once, populate the border bands, but
         # do NOT cache the full image
-        img = common.imread(path, flag=cv2.IMREAD_UNCHANGED)
+        img = common.imread(path, flag=common.IMREAD_UNCHANGED)
         if img is None:
             raise RuntimeError(f'failed to read {path}')
         img = self._apply_tf(img, path)
@@ -268,7 +268,7 @@ class StaticImageLoader(AbstractImageLoader):
         if not self.imgpaths:
             return
         try:
-            img = common.imread(self.abs_path(0), flag=cv2.IMREAD_UNCHANGED)
+            img = common.imread(self.abs_path(0), flag=common.IMREAD_UNCHANGED)
             if img is not None:
                 if self._dtype is None:
                     self._dtype = img.dtype.name
@@ -322,7 +322,7 @@ class StaticImageLoader(AbstractImageLoader):
             else:
                 imgpaths = [pat]
         if tile_size is None:
-            img = common.imread(imgpaths[0], flag=cv2.IMREAD_UNCHANGED)
+            img = common.imread(imgpaths[0], flag=common.IMREAD_UNCHANGED)
             if img is None:
                 raise RuntimeError(f'failed to read {imgpaths[0]}')
             tile_size = (img.shape[0], img.shape[1])
@@ -907,6 +907,7 @@ class ResampledLoader(AbstractImageLoader):
             return None
         w = int(round(bbox[2] - bbox[0]))
         h = int(round(bbox[3] - bbox[1]))
+        import cv2
         interp = cv2.INTER_AREA if self._scale > 1 else cv2.INTER_LINEAR
         return cv2.resize(img, (w, h), interpolation=interp)
 

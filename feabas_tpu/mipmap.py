@@ -8,7 +8,6 @@ optional high-pass contrast enhancement (capability parity with reference
 """
 
 import numpy as np
-import cv2
 
 from feabas_tpu import common, storage
 from feabas_tpu.dal import StaticImageLoader
@@ -50,6 +49,7 @@ def mip_one_level(meta_in, out_dir, tile_size=(4096, 4096), fmt='jpg',
     ``num_workers`` > 1 processes output tiles on a thread pool (the
     within-section parallelism of reference mip_map_one_section:131; cv2
     and image IO release the GIL). Returns the new metadata path."""
+    import cv2
     meta_out = join_paths(out_dir, 'metadata.txt')
     if storage.file_exists(meta_out, use_cache=True):
         return meta_out
@@ -181,6 +181,7 @@ def create_thumbnail(src_meta, out_file, thumbnail_mip=6, src_mip=0,
     band-passed (unsharp) to suppress large-scale shading, then reduced to
     the target mip and auto-scaled.
     """
+    import cv2
     if storage.file_exists(out_file, use_cache=True):
         return out_file
     loader = StaticImageLoader.from_coordinate_file(src_meta, **loader_config)
@@ -279,6 +280,7 @@ def generate_thumbnail_mask(tform_h5, out_file, thumbnail_mip=6,
     """ROI mask for a section's thumbnail from its stitch meshes
     (reference: thumbnail_main.py:155): rasterize the solved tile meshes at
     thumbnail resolution; non-covered pixels get the exclude label."""
+    import cv2
     if storage.file_exists(out_file, use_cache=True):
         return out_file
     from feabas_tpu.stitcher import Stitcher

@@ -2,12 +2,12 @@
 
 The global stiffness system of the reference (scipy sparse assembly +
 minres/pyAMG, ``feabas/optimizer.py:1945``, element math
-``feabas/material.py:134-309``) is recast for TPU as a matrix-free operator:
+``feabas/material.py:134-309``) is recast as a matrix-free device operator:
 
     A·x = lambda_s * K(x) + C^T W C x
 
 where ``K(x)`` gathers per-element displacement vectors, applies per-element
-6x6 stiffness blocks with one batched einsum (MXU work), and scatter-adds
+6x6 stiffness blocks with one batched einsum, and scatter-adds
 back, and the crosslink term does the same over (vertex-index, barycentric,
 weight) link arrays. No sparse matrix is ever formed; the system is solved
 with Jacobi-preconditioned CG under ``lax.while_loop``.
@@ -17,12 +17,19 @@ Element conventions (derived independently; scaling matches the reference so
 ``uv = [u1,v1,u2,v2,u3,v3]``; ``B`` (4x6) maps ``uv`` to the flattened
 displacement gradient ``[du/dx, du/dy, dv/dx, dv/dy]``; element area factor
 ``area2 = 2*area``; K_e = area2 * (Bn B)^T D (Bn B).
+
+Every contraction runs at ``constant.MATMUL_PRECISION``.
 """
 
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from feabas_tpu.constant import MATMUL_PRECISION
+
+_einsum = functools.partial(jnp.einsum, precision=MATMUL_PRECISION)
 
 
 # Voigt selector: [du/dx, dv/dy, du/dy + dv/dx] from the flat gradient
@@ -74,15 +81,15 @@ def _dmat(poisson, dtype):
 
 def eng_element_stiffness(B, area2, multiplier, poisson):
     """Linear engineering-strain element stiffness (NT,6,6)."""
-    Bn = jnp.einsum('ij,njk->nik', jnp.asarray(_VOIGT, B.dtype), B)
+    Bn = _einsum('ij,njk->nik', jnp.asarray(_VOIGT, B.dtype), B)
     D = _dmat(poisson, B.dtype)
-    K = jnp.einsum('nji,njk,nkl->nil', Bn, D, Bn)
+    K = _einsum('nji,njk,nkl->nil', Bn, D, Bn)
     return K * (area2 * multiplier)[:, None, None]
 
 
 def deformation_gradient(B, uv):
     """flat F = B@uv + flat(I): (NT,4) = [F11,F12,F21,F22]."""
-    F = jnp.einsum('nij,nj->ni', B, uv)
+    F = _einsum('nij,nj->ni', B, uv)
     return F + jnp.asarray([1.0, 0.0, 0.0, 1.0], B.dtype)
 
 
@@ -92,7 +99,7 @@ def area_stretch(B, uv):
 
 
 def eng_element_stress(Ke, uv):
-    return jnp.einsum('nij,nj->ni', Ke, uv)
+    return _einsum('nij,nj->ni', Ke, uv)
 
 
 def svk_element(B, area2, uv, multiplier, poisson):
@@ -110,7 +117,7 @@ def svk_element(B, area2, uv, multiplier, poisson):
     E12x2 = F11 * F12 + F21 * F22
     Ev = jnp.stack([E11, E22, E12x2], axis=-1)[..., None]     # (NT,3,1)
     D = _dmat(poisson, dtype)
-    S = jnp.einsum('nij,njk->nik', D, Ev)[:, :, 0]            # (NT,3) [S11,S22,S12]
+    S = _einsum('nij,njk->nik', D, Ev)[:, :, 0]            # (NT,3) [S11,S22,S12]
     # BN: dE_voigt = BN @ duv; rows from dE = sym(F^T dF)
     zero = jnp.zeros_like(F11)
     AF = jnp.stack([
@@ -118,7 +125,7 @@ def svk_element(B, area2, uv, multiplier, poisson):
         jnp.stack([zero, F12, zero, F22], -1),
         jnp.stack([F12, F11, F22, F21], -1),
     ], axis=1)                                                # (NT,3,4)
-    BN = jnp.einsum('nij,njk->nik', AF, B)                    # (NT,3,6)
+    BN = _einsum('nij,njk->nik', AF, B)                    # (NT,3,6)
     # geometric stiffness: block-diag [[S11,S12],[S12,S22]] per component
     S11, S22, S12 = S[:, 0], S[:, 1], S[:, 2]
     Sg = jnp.zeros((F.shape[0], 4, 4), dtype=dtype)
@@ -126,11 +133,11 @@ def svk_element(B, area2, uv, multiplier, poisson):
     Sg = Sg.at[:, 2, 2].set(S11).at[:, 3, 3].set(S22)
     Sg = Sg.at[:, 0, 1].set(S12).at[:, 1, 0].set(S12)
     Sg = Sg.at[:, 2, 3].set(S12).at[:, 3, 2].set(S12)
-    Kmat = jnp.einsum('nji,njk,nkl->nil', BN, D, BN)
-    Kgeo = jnp.einsum('nji,njk,nkl->nil', B, Sg, B)
+    Kmat = _einsum('nji,njk,nkl->nil', BN, D, BN)
+    Kgeo = _einsum('nji,njk,nkl->nil', B, Sg, B)
     scale = (area2 * multiplier)[:, None, None]
     Ke = (Kmat + Kgeo) * scale
-    Pe = jnp.einsum('nji,nj->ni', BN, S) * (area2 * multiplier)[:, None]
+    Pe = _einsum('nji,nj->ni', BN, S) * (area2 * multiplier)[:, None]
     return Ke, Pe
 
 
@@ -140,7 +147,7 @@ def nhk_element(B, area2, uv, multiplier):
     F = deformation_gradient(B, uv)
     J = F[:, 0] * F[:, 3] - F[:, 1] * F[:, 2]
     U = jnp.asarray(_ADJT, dtype)
-    Fu = jnp.einsum('ij,nj->ni', U, F)        # flat adj(F)^T = J * flat(F^-T)
+    Fu = _einsum('ij,nj->ni', U, F)        # flat adj(F)^T = J * flat(F^-T)
     # P_flat = mu (F - F^-T) = mu (F - Fu/J)
     Pf = F - Fu / J[:, None]
     # dP/dF = mu (I - U/J + (Fu Fu^T)/J^2)
@@ -148,8 +155,8 @@ def nhk_element(B, area2, uv, multiplier):
     dPdF = (I4[None] - U[None] / J[:, None, None]
             + Fu[:, :, None] * Fu[:, None, :] / (J ** 2)[:, None, None])
     scale = 0.5 * area2 * multiplier
-    Ke = jnp.einsum('nji,njk,nkl->nil', B, dPdF, B) * scale[:, None, None]
-    Pe = jnp.einsum('nji,nj->ni', B, Pf) * scale[:, None]
+    Ke = _einsum('nji,njk,nkl->nil', B, dPdF, B) * scale[:, None, None]
+    Pe = _einsum('nji,nj->ni', B, Pf) * scale[:, None]
     return Ke, Pe
 
 
@@ -174,7 +181,7 @@ def scatter_uv(y_e, tris, nv):
 def stiffness_matvec(x, Ke, tris):
     """K @ x for (NV,2) x."""
     uv = gather_uv(x, tris)
-    y = jnp.einsum('nij,nj->ni', Ke, uv)
+    y = _einsum('nij,nj->ni', Ke, uv)
     return scatter_uv(y, tris, x.shape[0])
 
 
@@ -191,8 +198,8 @@ def stiffness_force(x, Ke, tris):
 def build_incidence(tris, nv, max_degree=None):
     """Vertex->element-corner incidence table (host, once per topology).
 
-    TPU scatter-adds serialize on duplicate indices; inverting the map
-    turns the FEM transpose-scatter into a dense gather: for vertex v,
+    Inverting the map turns the FEM transpose-scatter (a scatter-add
+    with duplicate indices) into a dense gather: for vertex v,
     ``inc[v, d]`` indexes the flattened (NT*3) per-corner contribution
     array, ``mask[v, d]`` zeroes padding. Returns (inc int32 (NV, D),
     mask float32 (NV, D))."""
@@ -224,17 +231,9 @@ def gather_scatter_uv(y_e, inc, mask):
 def stiffness_matvec_gather(x, Ke, tris, inc, mask):
     """K @ x using the incidence gather instead of scatter-add."""
     uv = gather_uv(x, tris)
-    y = jnp.einsum('nij,nj->ni', Ke, uv)
+    y = _einsum('nij,nj->ni', Ke, uv)
     return gather_scatter_uv(y, inc, mask)
 
-
-# Banded-stiffness matvec (RCM ordering + block-banded K storage) was
-# prototyped in rounds 2-3 and REMOVED in round 4: measured head-to-head
-# (PERF_NOTES.md "FEM matvec representations") it tied the incidence-
-# gather matvec within 15% on every mesh family this framework produces
-# (post-RCM bandwidth ~ vertex degree for 2D triangulations), so it never
-# earned a call site. The implementation lives in git history (round-3
-# tree, ops/fem.py rcm_order/banded_assemble/banded_matvec).
 
 
 # ------------------------- lattice stencil ------------------------- #
@@ -243,14 +242,11 @@ def stiffness_matvec_gather(x, Ke, tris, inc, mask):
 # equilateral row-staggered grids (triangulation.triangulate_geometry) —
 # so K admits a 9-point stencil on the vertex lattice: per vertex, one
 # 2x2 block per {-1,0,1}^2 neighbor offset. The matvec then runs as 9
-# shifted VPU multiply-adds with ZERO random accesses per CG iteration
-# (one scatter-add assembles the planes per SOLVE), unlike the
-# gather/scatter formulations above which pay ~8M random accesses per
-# iteration at 1.3M DOF (roofline: 6.6 ms/iter, 5% HBM). The RCM-banded
-# storage tied the gather path because post-RCM bandwidth ~ grid width
-# (~200 diagonals); the lattice stencil reads exactly the 9 planes.
+# shifted multiply-adds with ZERO random accesses per CG iteration
+# (one assembly per SOLVE), unlike the gather/scatter formulations
+# above, which pay several random accesses per element per iteration.
 # (Reference role: the assembled scipy CSR matvec inside minres,
-# /root/reference/feabas/optimizer.py:1945-1968.)
+# feabas/optimizer.py:1945-1968.)
 
 def lattice_embedding(verts, tris, min_occupancy=0.5):
     """Integer lattice embedding of a mesh (host, once per topology).
@@ -423,9 +419,7 @@ def build_stencil_assembly(tris, nx, nv):
     """Host-side gather table for the 9-plane stencil assembly (once per
     topology). The in-program ``stencil_assemble`` scatter-add carries
     T*9 entries with heavy destination duplication (every vertex collects
-    its ~6 incident elements), and TPU scatters serialize on duplicates —
-    at 80 sections x 25k tris that scatter alone costs seconds per solve.
-    This table inverts it: for each (plane, vertex) destination, the rows
+    its ~6 incident elements). This table inverts it: for each (plane, vertex) destination, the rows
     of the flattened (T*9 + 1)-row element-block array that contribute
     (row t*9 + i*3 + j = element t's (i, j) 2x2 block; pad entries point
     at the trailing zero row). Assembly then = gather + sum, no scatter.
@@ -471,8 +465,8 @@ def stiffness_matvec_stencil(x, C, ny, nx):
     """K @ x as 9 shifted multiply-adds on the (ny, nx) vertex lattice —
     zero gathers/scatters per call. Off-grid neighbors carry zero
     coefficients (no element spans the boundary), so zero-padding is
-    exact. Spelled as mul+sum (not dot_general) so TPU keeps it in f32
-    on the VPU."""
+    exact. Spelled as mul+sum (not dot_general): elementwise f32 math
+    with no matmul precision to choose."""
     xg = x.reshape(ny, nx, 2)
     xp = jnp.pad(xg, ((1, 1), (1, 1), (0, 0)))
     Cg = C.reshape(9, ny, nx, 2, 2)
@@ -498,7 +492,7 @@ def stencil_diag(C, nv):
 
 def link_eval(x, idx, bary):
     """Barycentric sample of (NV,2) x at links: (L,2)."""
-    return jnp.einsum('lk,lkc->lc', bary, x[idx])
+    return _einsum('lk,lkc->lc', bary, x[idx])
 
 
 def link_residual(x, idx0, bary0, idx1, bary1, offset):
@@ -577,7 +571,7 @@ def cg_solve(matvec, b, diag=None, x0=None, tol=1e-7, atol=0.0, maxiter=1000,
     max_stall = maxiter + 1 if chances is None else int(chances)
 
     def dot(a, c):
-        return jnp.vdot(a, c)
+        return jnp.vdot(a, c, precision=MATMUL_PRECISION)
 
     r0 = b - matvec(x0)
     z0 = precond(r0)

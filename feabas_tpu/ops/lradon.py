@@ -2,7 +2,7 @@
 descriptor extraction, and rotation-exhaustive descriptor matching as three
 jitted programs (reference host pipeline: feabas/thumbnail.py:605-760).
 
-Design notes (tpu-first):
+Design notes:
 - detection returns a STATIC top-k keypoint table (xy, response, valid) —
   data-dependent counts become a validity mask so one compiled program
   serves every section;
@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from feabas_tpu.constant import MATMUL_PRECISION
 from feabas_tpu.ops.filters import gaussian_blur
 from feabas_tpu.ops.warp import bilinear_sample
 
@@ -120,11 +121,10 @@ def _lradon_core(img, xy, offs, proj_num, beam_num, beam_wd, D):
     commutes with the sampling and the rotation collapses into the
     per-sample coordinates. Cost is K*P*B*(D*wd) gathers, INDEPENDENT of
     image size (the canvas path rotated + cumsummed a pow2 diagonal
-    canvas per angle: ~100M canvas px at 2048^2, measured 2.8 s/fetch).
-    Measured 2.44 s hot at 8k keypoints on TPU — gather-bound, which is
-    why production routes through ``_lradon_patch_core`` (MXU path);
-    this single-interpolation form is kept as the exactness reference
-    the patch path is tested against.
+    canvas per angle). It is gather-bound, which is why production
+    routes through ``_lradon_patch_core`` (the matmul path); this
+    single-interpolation form is kept as the exactness reference the
+    patch path is tested against.
     """
     h, w = img.shape
     t = jnp.arange(proj_num) * (np.pi / proj_num)
@@ -205,7 +205,7 @@ def _stencil_table(proj_num, beam_num, beam_wd, D, offs, Rp):
 
 
 def _patch_body(imgp, z, f, W, proj_num, Rp):
-    """Traced patch + stencil-matmul LRadon evaluation (MXU path).
+    """Traced patch + stencil-matmul LRadon evaluation (matmul path).
 
     The direct formulation (``_lradon_core``) costs K*P*B*D*wd bilinear
     gathers — gather-bound at ~100M reads/s (2.4 s at 8k keypoints).
@@ -214,18 +214,18 @@ def _patch_body(imgp, z, f, W, proj_num, Rp):
     element gathers), then evaluate ALL P*B bins of all 4 integer-corner
     shifts as ONE matmul against the precomputed stencil matrix and
     blend the corners with the keypoint's fractional offset. The
-    sampling moves from the gather unit to the MXU: (K, Dp^2) @ (Dp^2,
+    sampling moves from gathers to one matmul: (K, Dp^2) @ (Dp^2,
     4*P*B) ~ 7 GFLOP at 8k keypoints."""
     Dp = 2 * Rp + 1
     patches = jax.vmap(
         lambda zk: jax.lax.dynamic_slice(imgp, (zk[1], zk[0]), (Dp, Dp)))(z)
     Pm = patches.reshape(patches.shape[0], -1)                # (K, Dp^2)
     M = jnp.einsum('kp,cqp->kcq', Pm, W,
-                   precision=jax.lax.Precision.HIGHEST)       # (K, 4, PB)
+                   precision=MATMUL_PRECISION)       # (K, 4, PB)
     fx, fy = f[:, 0], f[:, 1]
     wc = jnp.stack([(1 - fx) * (1 - fy), fx * (1 - fy),
                     (1 - fx) * fy, fx * fy], axis=1)          # (K, 4)
-    des = jnp.einsum('kc,kcq->kq', wc, M)
+    des = jnp.einsum('kc,kcq->kq', wc, M, precision=MATMUL_PRECISION)
     des = des.reshape(des.shape[0], proj_num, -1)             # (K, P, B)
     des = des - des.mean(axis=(1, 2), keepdims=True)
     nrm = jnp.linalg.norm(des.reshape(des.shape[0], -1), axis=-1)
@@ -315,7 +315,7 @@ def _match_body(d0, v0, d1, v1, proj_num, exhaustive):
         def step(carry, vr):
             S_best, m_best, r_best, ri = carry
             S = jnp.einsum('nd,md->nm', vr, a0,
-                           precision=jax.lax.Precision.HIGHEST)
+                           precision=MATMUL_PRECISION)
             S = jnp.where(vmask, S, -jnp.inf)
             m = jnp.max(S)
             take = m > m_best                        # first max wins ties
@@ -327,7 +327,7 @@ def _match_body(d0, v0, d1, v1, proj_num, exhaustive):
         (S, _, best_rot, _), _ = jax.lax.scan(step, init, variants)
     else:
         S = jnp.einsum('nd,md->nm', d1.reshape(k1, -1), a0,
-                       precision=jax.lax.Precision.HIGHEST)
+                       precision=MATMUL_PRECISION)
         S = jnp.where(vmask, S, -jnp.inf)
         best_rot = jnp.int32(0)
     i0 = jnp.argmax(S, axis=1)                       # (K1,)

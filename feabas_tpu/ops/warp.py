@@ -46,8 +46,7 @@ def pack_u8_quads(src):
     | img[y+1, x] << 16 | img[y+1, x+1] << 24 (edge-clamped).
 
     Bilinear sampling then needs ONE gather per output pixel instead of
-    four — gathers are the TPU warp bottleneck (~100M random reads/s,
-    PERF_NOTES.md), so this quarters the sampling cost for uint8 sources.
+    four, which quarters the gather traffic for uint8 sources.
     """
     s = src.astype(jnp.uint32)
     sr = jnp.concatenate([s[:, 1:], s[:, -1:]], axis=1)       # x+1
@@ -90,10 +89,9 @@ def remap_device(src, mxs, mys, fillval=0.0):
     """Device bilinear remap (cv2.remap equivalent) with pow2 shape
     bucketing so a handful of jit signatures serve arbitrary block sizes.
 
-    The measured DEVICE OPTION for the render path (round-2 VERDICT next
-    #1): on PCIe-attached accelerators the gather runs the remap in HBM;
-    through a slow host<->device link the host cv2 path usually stays
-    ahead — callers choose via ``render_by_subregions(device_remap=...)``.
+    The device option for the host render path: the gather runs the
+    remap in device memory; callers choose via
+    ``render_by_subregions(device_remap=...)``.
     Source ships in its native dtype (uint8 quarters transfer bytes).
     """
     import numpy as np
@@ -139,16 +137,14 @@ def affine_warp_blocks(img, origins, A, b, block_h, block_w, fillval=0.0):
 
 @functools.partial(jax.jit, static_argnames=('h', 'w', 'K'))
 def affine_warp_blocks_shifted(img, origins, A, b, h, w, K, fillval=0.0):
-    """Gather-free batched affine block warp (TPU fast path).
+    """Gather-free batched affine block warp.
 
     XLA lowers ``bilinear_sample``'s advanced indexing to a per-element
-    gather — ~100M random reads/s on TPU, which made the warp the
-    matcher's true hot op (195 ms per 512x96px batch, measured). Here
-    each block slices ONE (h+2K+2, w+2K+2) source window at its integer
-    base offset; the within-window source coordinate deviates from the
-    output pixel by frac + (x,y)@(A-I), bounded by K, so bilinear
-    sampling becomes a (2K+2)^2 static-shift weighted sum — pure VPU
-    elementwise math (4.6 ms for the same batch, 42x).
+    gather. Here each block slices ONE (h+2K+2, w+2K+2) source window at
+    its integer base offset; the within-window source coordinate deviates
+    from the output pixel by frac + (x,y)@(A-I), bounded by K, so
+    bilinear sampling becomes a (2K+2)^2 static-shift weighted sum of
+    elementwise math.
 
     K must bound ceil(max |(x,y)@(A-I)| + 1) over the block; pixels whose
     deviation exceeds K fall to ``fillval`` (zero weight on every shift),

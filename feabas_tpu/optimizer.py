@@ -5,7 +5,7 @@ barycentric) anchors; `SLM` bundles meshes + links and runs the solver
 cascade: per-mesh translation LSQ -> greedy affine cascade -> global
 elastic relaxation (linear or Newton-Raphson).
 
-The elastic solve is TPU-native: meshes concatenate into one global vertex
+The elastic solve runs on the device: meshes concatenate into one global vertex
 array, element stiffness blocks and crosslink operators act matrix-free
 (``feabas_tpu.ops.fem``), and a Jacobi-PCG runs under jit. This replaces the
 reference's scipy-sparse assembly + minres/pyAMG
@@ -25,6 +25,7 @@ import jax.numpy as jnp
 
 from feabas_tpu import config
 from feabas_tpu import constant as const
+from feabas_tpu.constant import MATMUL_PRECISION
 from feabas_tpu.ops import fem
 
 
@@ -55,7 +56,7 @@ def _sparse_spd_solve(A, b, diag, rtol=1e-10, maxiter=2000):
 
 
 def _solver_dtype():
-    """f64 when x64 is enabled (CPU validation), else f32 (TPU prod)."""
+    """f64 when x64 is enabled (CPU validation), else f32 (device)."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
@@ -97,8 +98,7 @@ def _flat_translation_precond(offsets_arr, agg, mesh_free, idx0, idx1,
         cs = jnp.concatenate([jnp.zeros((1, 2), r.dtype),
                               jnp.cumsum(r, axis=0)])
         rc = cs[stops] - cs[starts]
-        cc = jnp.einsum('st,tc->sc', Acinv, rc,
-                        precision=jax.lax.Precision.HIGHEST)
+        cc = jnp.einsum('st,tc->sc', Acinv, rc, precision=MATMUL_PRECISION)
         cc = cc * mesh_free[:, None]
         return r * minv + cc[agg] * free
 
@@ -117,12 +117,11 @@ def _mode_projector(modes):
     counterpart: extra-DOF removal for unlocked components,
     optimizer.py:1362-1377). Shared by the fused/general SLM solves, the
     sharded montage solve, and the stacked window solve. The
-    contractions run at Precision.HIGHEST: the TPU's default bf16
-    matmul would leave ~1e-3 relative rigid-mode leakage per
-    projection."""
+    contractions run at ``MATMUL_PRECISION``: a TF32 product would leak
+    about 1e-3 of the rigid modes back in per projection."""
     if modes is None:
         return lambda x: x
-    hi = jax.lax.Precision.HIGHEST
+    hi = MATMUL_PRECISION
     tail = tuple(range(1, modes.ndim))
 
     def project(x):
@@ -179,8 +178,7 @@ def _linear_solve_eng(tris, B, area2, multiplier, poisson,
     (any number of meshes/material groups, concatenated in global vertex
     numbering). Assembles element blocks, trace-balances the stiffness
     lambda, builds rhs/diag, and runs Jacobi-PCG — all in one XLA program
-    so a solve costs one dispatch instead of ~15 (material for tunneled
-    hosts). Returns (NV+2, 2): dx rows followed by a stats block
+    so a solve costs one dispatch instead of ~15. Returns (NV+2, 2): dx rows followed by a stats block
     [[bnorm, res], [cost0, 0]]."""
     nv = pos_start.shape[0]
     Ke = fem.eng_element_stiffness(B, area2, multiplier, poisson)
@@ -224,7 +222,7 @@ def _linear_solve_eng(tris, B, area2, multiplier, poisson,
                                  maxiter=maxiter, precond=precond)
     dx = project(dx)
     # pack (dx, bnorm, res, cost0) into ONE array so the caller pays a
-    # single device->host round trip (dominant cost on tunneled links)
+    # single device->host round trip
     cost0 = jnp.linalg.norm(r0 * weight[:, None])
     stats = jnp.stack([jnp.stack([jnp.linalg.norm(b), res]),
                        jnp.stack([cost0, n_it.astype(dx.dtype)])])

@@ -6,13 +6,13 @@ block-diagonal stiffness plus a sparse coupling graph. Tiles shard across
 devices on a 1-D 'm' mesh axis: per-tile FEM matvecs are local vmaps
 (never cross devices), and only the link coupling gathers/scatters across
 the sharded tile axis, which XLA lowers to all-gather / reduce-scatter
-over ICI. CG dot products become global reductions automatically.
+between devices. CG dot products become global reductions automatically.
 
-This is the TPU scale-out of the reference's per-section montage solve
+This is the multi-device scale-out of the reference's per-section montage solve
 (``feabas/stitcher.py:961`` — one scipy sparse system over all tiles on
 one host). The z-window analog with chain links is
 ``feabas_tpu/parallel/window.py``; this module handles the general pair
-graph so MultiSEM-scale sections (10k+ tiles) span all chips.
+graph so MultiSEM-scale sections (10k+ tiles) span all devices.
 """
 
 import functools
@@ -355,7 +355,7 @@ def montage_solve(verts0, u, tris, multiplier, poisson, links, r_rest, free,
             rt = r.sum(axis=1)                          # (M, 2)
             rc = jnp.zeros((A, 2), dt).at[agg].add(rt)
             cc = jnp.einsum('st,tc->sc', Acinv, rc,
-                            precision=jax.lax.Precision.HIGHEST)
+                            precision=fem.MATMUL_PRECISION)
             cc = cc * freed_agg[:, None]
             return r * minv + cc[agg][:, None, :] * free
 

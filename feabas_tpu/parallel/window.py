@@ -5,10 +5,11 @@ while each section carries its own stiffness — a block-tridiagonal system
 along z. Here sections shard across devices on a 1-D ``jax.sharding.Mesh``
 ('z' axis): intra-section element stiffness matvecs are fully local
 (vmapped over the section axis), and the z-neighbor crosslink coupling
-slices across the section axis, which XLA lowers to ICI halo exchanges.
-CG dot products become global ``psum``-style reductions automatically.
+slices across the section axis, which XLA lowers to halo exchanges
+between devices. CG dot products become global ``psum``-style
+reductions automatically.
 
-This is the TPU replacement for the reference's buffer-overlap sliding
+This is the multi-device replacement for the reference's buffer-overlap sliding
 window (``feabas/aligner.py:538-675``): instead of re-solving overlapping
 windows sequentially on one host, one window spans all chips with exact
 coupling. Sections may have DIFFERENT topologies (the production case —
@@ -237,13 +238,12 @@ def _stack_matvec(x, Ke, tris, links, free, lam_s, inc=None, imask=None,
                   C=None, grid_shape=None, linc=None):
     """A @ x for the stacked system; x: (S, V, 2); tris: (S, T, 3). With
     an incidence table the FEM transpose uses gathers instead of
-    scatter-adds (TPU scatters serialize on duplicates). With stencil
+    duplicate-index scatter-adds. With stencil
     planes ``C`` (lattice-packed systems, fem.stencil_assemble) the FEM
     matvec runs gather-free as 9 shifted multiply-adds per section.
     With ``linc`` (build_link_transpose) the crosslink transpose runs as
     a touched-vertex incidence gather + unique-index scatter instead of
-    the duplicate-serializing scatter-add (5.1 -> ~0.3 ms/iter at
-    64x10201 verts)."""
+    the duplicate-index scatter-add."""
     x = x * free
     shared = tris.ndim == 2          # one topology for every section
     if inc is not None and (inc.ndim == 2) != shared:
@@ -257,9 +257,8 @@ def _stack_matvec(x, Ke, tris, links, free, lam_s, inc=None, imask=None,
         y = jax.vmap(lambda xi, Ci: fem.stiffness_matvec_stencil(
             xi, Ci, ny, nx))(x, C) * lam_s
     elif inc is not None and inc.ndim == 2 and shared:
-        # shared incidence table: the per-section vmapped variant
-        # kernel-faults the TPU worker, the shared-table closure does
-        # not — and gathers beat scatter-adds on TPU
+        # shared incidence table: one (V, D) table closed over by the
+        # section vmap
         y = jax.vmap(lambda xi, Ki: fem.stiffness_matvec_gather(
             xi, Ki, tris, inc, imask))(x, Ke) * lam_s
     elif inc is not None and not shared:
@@ -316,9 +315,8 @@ def build_link_transpose(links, S, V):
     """Host-side transpose tables for the crosslink scatter (once per
     system; topology-static, weight-independent).
 
-    The naive ``zeros.at[idx].add`` transpose serializes on duplicate
-    vertices — measured 5.1 ms of the 5.7 ms CG iteration at 64x10201
-    verts (PERF_NOTES round 5). Instead: per section, gather each
+    The naive ``zeros.at[idx].add`` transpose scatters with duplicate
+    vertex indices. Instead: per section, gather each
     TOUCHED vertex's few contributions from the flattened per-iteration
     contribution array and place them with a UNIQUE-index scatter
     (padding rows target distinct unused vertices, so the scatter
@@ -539,7 +537,7 @@ def stack_solve(verts0, u, tris, multiplier, poisson, links, r_rest, free,
     def precond(r):
         rc = r.sum(axis=1)                              # (S, 2)
         cc = jnp.einsum('st,tc->sc', Acinv, rc,
-                        precision=jax.lax.Precision.HIGHEST)
+                        precision=fem.MATMUL_PRECISION)
         cc = cc * freed[:, None]
         return project(r * minv + cc[:, None, :] * free)
 
@@ -602,10 +600,10 @@ def shard_stack_system(system, device_mesh):
     """Place the batched arrays on a 1-D device mesh along z.
 
     Works for a single-process mesh AND a multi-process
-    ``jax.distributed`` mesh spanning hosts (DCN x ICI): arrays are built
-    with ``make_array_from_callback`` so only addressable shards
-    materialize locally; the z-neighbor crosslink slicing in
-    ``_stack_matvec`` then lowers to ICI/DCN halo collectives.
+    ``jax.distributed`` mesh spanning hosts: arrays are built with
+    ``make_array_from_callback`` so only addressable shards materialize
+    locally; the z-neighbor crosslink slicing in ``_stack_matvec`` then
+    lowers to halo collectives between devices and hosts.
     Requires S %% n_devices == 0 — call :func:`pad_stack_sections`
     first for arbitrary section counts.
     """
@@ -644,10 +642,10 @@ def shard_stack_system(system, device_mesh):
 
 def initialize_multihost(coordinator_address, num_processes, process_id,
                          **kwargs):
-    """Join a multi-process JAX cluster (DCN coordination). The TPU-pod
-    replacement for the reference's dask/SLURM scale-out of window solves
-    (reference: feabas/concurrent.py:147, aligner.py:909): one window's
-    block-tridiagonal system spans every chip of every host."""
+    """Join a multi-process JAX cluster. The multi-host replacement for
+    the reference's dask/SLURM scale-out of window solves (reference:
+    feabas/concurrent.py:147, aligner.py:909): one window's
+    block-tridiagonal system spans every device of every host."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id, **kwargs)
@@ -733,8 +731,8 @@ def multihost_window_solve(meshes, links_per_pair, lam_s=1.0, tol=1e-7,
 
     Builds the stacked system on host, pads the section axis to the
     global device count (inert sections), shards it over the 'z' mesh,
-    runs the jitted CG (collectives ride ICI within a host and DCN
-    across hosts), and returns (positions, n_it, res) with the full
+    runs the jitted CG (collectives within a host and across hosts), and
+    returns (positions, n_it, res) with the full
     world-frame f64 solution on every process.
     """
     if len(meshes) < 2:

@@ -7,10 +7,9 @@ extracted and simplified with cv2, and material membership of any point is
 answered by sampling the mask — no boolean polygon algebra needed.
 """
 
-import cv2
 import numpy as np
 
-from feabas_tpu.common import imread
+from feabas_tpu.common import IMREAD_GRAYSCALE, imread
 
 
 # ------------------------- transform fitting ------------------------- #
@@ -74,6 +73,7 @@ def apply_affine(pts, T):
 def find_rotation_for_minimum_rectangle(pts):
     """Rotation angle (radians) that minimizes the bounding rectangle of a
     point set (reference: feabas/spatial.py:525)."""
+    import cv2
     pts = np.asarray(pts, dtype=np.float32).reshape(-1, 2)
     if pts.shape[0] < 3:
         return 0.0
@@ -156,6 +156,7 @@ def mask_to_contours(mask, simplify_tol=2.0, zigzag_tol=0.5,
     [c-0.5, c+0.5]; holes shrink), staircase-smoothed at ``zigzag_tol``
     then simplified with Douglas-Peucker at ``simplify_tol``.
     """
+    import cv2
     m = (np.asarray(mask) > 0).astype(np.uint8)
     contours, hierarchy = cv2.findContours(m, cv2.RETR_CCOMP, cv2.CHAIN_APPROX_SIMPLE)
     rings = []
@@ -467,7 +468,7 @@ class Geometry:
 
     @classmethod
     def from_image(cls, path, material_table=None, **kwargs):
-        mask = imread(path, flag=cv2.IMREAD_GRAYSCALE)
+        mask = imread(path, flag=IMREAD_GRAYSCALE)
         return cls(mask, material_table=material_table, **kwargs)
 
     @property
@@ -532,6 +533,7 @@ class Geometry:
         return int(mat.mask_label)
 
     def _kernel(self, dist):
+        import cv2
         k = int(round(float(dist) / self.scale))
         if k < 1:
             return None
@@ -540,6 +542,7 @@ class Geometry:
     def _dilate_regions(self, dist):
         """Grow every non-default, non-exclude region by ``dist`` world
         units (reference ``dilate`` kwarg, feabas/spatial.py:633-637)."""
+        import cv2
         ker = self._kernel(dist)
         if ker is None:
             return
@@ -556,6 +559,7 @@ class Geometry:
     def _erode_roi(self, dist):
         """Shrink the ROI inward by ``dist`` world units (reference
         ``roi_erosion``, feabas/spatial.py:629-631)."""
+        import cv2
         ker = self._kernel(dist)
         if ker is None:
             return
@@ -652,8 +656,9 @@ class Geometry:
         path or (H,W) label array; labels translate through
         ``material_table`` (default: this geometry's) plus optional
         ``region_names`` {name: label} additions."""
+        import cv2
         if isinstance(image, str):
-            image = imread(image, flag=cv2.IMREAD_GRAYSCALE)
+            image = imread(image, flag=IMREAD_GRAYSCALE)
         image = np.asarray(image)
         if image.ndim == 3:
             image = image[..., 0]
@@ -703,8 +708,9 @@ class Geometry:
                               mode='r'):
         """ROI from a label image: pixels equal to ``roi_label`` are in-ROI
         (reference modify_roi_from_image, feabas/spatial.py:738)."""
+        import cv2
         if isinstance(image, str):
-            image = imread(image, flag=cv2.IMREAD_GRAYSCALE)
+            image = imread(image, flag=IMREAD_GRAYSCALE)
         image = np.asarray(image)
         if image.ndim == 3:
             image = image[..., 0]
@@ -724,6 +730,7 @@ class Geometry:
         small disconnected ROI islands become exclude. Interior holes are
         already exclude pixels in the raster representation. ``area_thresh``
         is in world units squared. Returns self."""
+        import cv2
         if area_thresh and area_thresh > 0:
             min_px = float(area_thresh) / (self.scale ** 2)
             ex, de = self.exclude_label, self.default_label
@@ -746,6 +753,7 @@ class Geometry:
         """One representative world point per connected component, keyed by
         material name (reference collect_region_markers,
         feabas/spatial.py:824)."""
+        import cv2
         lut = {m.mask_label: n for n, m in self.material_table
                if m.mask_label is not None}
         out = {}
@@ -858,6 +866,7 @@ class Geometry:
         boundary (shared arcs), plus per-region seed points labeled by
         material. Conforming triangulations over this PSLG have exact
         per-material regions instead of centroid-quantized ones."""
+        import cv2
         arcs = self.boundary_arcs(simplify_tol=simplify_tol,
                                   roi_tol=roi_tol)
         vertices, segments = [], []

@@ -13,7 +13,7 @@ import scipy.sparse as sparse
 from feabas_tpu import common, config
 from feabas_tpu import constant as const
 from feabas_tpu import spatial as sp
-from feabas_tpu.concurrent import submit_to_workers
+from feabas_tpu.concurrent import device_framework, submit_to_workers
 from feabas_tpu.dal import StaticImageLoader, get_loader_from_json
 from feabas_tpu.matcher import stitching_matcher
 from feabas_tpu.mesh import Mesh
@@ -134,8 +134,11 @@ class Stitcher:
                 for i in range(0, len(overlaps), num_overlaps_per_job)]
         args = [(loader_spec, list(job), margin, matcher_config) for job in jobs]
         n = 0
+        # matching runs device programs: workers are threads of this
+        # process, which owns the accelerator
         for result in submit_to_workers(subprocess_match_list_of_overlaps, args,
-                                        num_workers=num_workers):
+                                        num_workers=num_workers,
+                                        parallel_framework=device_framework()):
             for key, match, photometric, err in result:
                 if err is not None:
                     continue
@@ -586,13 +589,20 @@ class Stitcher:
 
 def subprocess_match_list_of_overlaps(loader_spec, overlaps, margin,
                                       matcher_config):
-    """Worker: match a batch of overlap pairs (reference: stitcher.py:475).
+    """Worker: ``match_list_of_overlaps`` on a loader rebuilt from its
+    JSON spec (reference: stitcher.py:475)."""
+    return match_list_of_overlaps(get_loader_from_json(loader_spec),
+                                  overlaps, margin, matcher_config)
+
+
+def match_list_of_overlaps(loader, overlaps, margin, matcher_config):
+    """Match a batch of overlap pairs of ``loader``'s tiles.
 
     Returns list of ((i, j), Match|None, photometric|None, error|None) with
     matches in tile-local pixel coordinates; photometric = per-side overlap
-    (mean, std) when requested. Exceptions are contained per overlap."""
+    (mean, std) when requested. Crop errors are contained per overlap;
+    errors of the matcher itself propagate."""
     from feabas_tpu.matcher import match_pairs_batched
-    loader = get_loader_from_json(loader_spec)
     out = []
     jobs = []
     ctx = []
@@ -967,10 +977,11 @@ class MontageRenderer:
     def render_series_to_file(self, out_dir, **kwargs):
         """Render all output tiles as images; writes a metadata coordinate
         file so later stages can mosaic-load the result
-        (reference: stitcher.py:1567). With ``num_workers`` > 1 the
-        z-ordered plan splits into contiguous job slices rendered by
-        process workers, each rebuilding the renderer from the source H5
-        (reference fan-out: stitcher.py:1790,1967)."""
+        (reference: stitcher.py:1567). With ``num_workers`` > 1 and host
+        rendering, the z-ordered plan splits into contiguous job slices
+        rendered by process workers, each rebuilding the renderer from
+        the source H5 (reference fan-out: stitcher.py:1790,1967). Device
+        rendering stays in this process, which owns the accelerator."""
         from feabas_tpu import storage
         tile_size = kwargs.pop('tile_size', (4096, 4096))
         pattern = kwargs.pop('pattern', '_tr{ROW_IND}-tc{COL_IND}.png')
@@ -981,13 +992,14 @@ class MontageRenderer:
                                        one_based=one_based, prefix=prefix,
                                        canvas_bbox=kwargs.pop('canvas_bbox', None))
         src = getattr(self, '_src_h5', None)
-        if num_workers > 1 and src is not None and len(plan) > 1:
-            from feabas_tpu.concurrent import submit_to_workers
+        from feabas_tpu.renderer import resolve_device_render
+        dev = resolve_device_render(kwargs.get('device_render', None))
+        if num_workers > 1 and src is not None and len(plan) > 1 and not dev:
             njobs = min(num_workers * 2, len(plan))
             bounds = np.linspace(0, len(plan), njobs + 1).astype(int)
             args = [(src, self._loader_config,
                      getattr(self, '_init_kwargs', {}),
-                     plan[a:b], out_dir, dict(kwargs))
+                     plan[a:b], out_dir, dict(kwargs, device_render=False))
                     for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
             rendered = []
             for part in submit_to_workers(subprocess_render_montage_tiles,

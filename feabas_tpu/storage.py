@@ -16,8 +16,7 @@ import tempfile
 from contextlib import contextmanager
 from functools import lru_cache
 
-import h5py
-import yaml
+from feabas_tpu.utils import yaml_subset
 
 _GCS_PREFIX = 'gs://'
 _S3_PREFIX = 's3://'
@@ -257,6 +256,7 @@ class H5File:
     """h5py.File wrapper that stages cloud-resident files via local temp."""
 
     def __init__(self, path, mode='r', **kwargs):
+        import h5py
         self._path = str(path)
         self._mode = mode
         self._kwargs = kwargs
@@ -298,13 +298,14 @@ def h5file_class():
 
 
 def load_yaml(path, default=None):
+    """Read a config file in the YAML subset of ``utils.yaml_subset``."""
     if (path is None) or (not file_exists(path)):
         return {} if default is None else default
     with File(path, 'r') as f:
-        conf = yaml.safe_load(f)
+        conf = yaml_subset.loads(f.read())
     return conf if conf is not None else ({} if default is None else default)
 
 
 def save_yaml(path, data):
     with File(path, 'w') as f:
-        yaml.safe_dump(data, f, default_flow_style=False)
+        f.write(yaml_subset.dumps(data))

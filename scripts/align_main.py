@@ -581,6 +581,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    config.enable_compile_cache()
     conf = config.align_configs()
     info, logger = initialize_main_logger(prefix=f'align_{args.mode}', mp_queue=False)
     from feabas_tpu.logging import stage_timer

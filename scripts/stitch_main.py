@@ -182,6 +182,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    config.enable_compile_cache()
     conf = config.stitch_configs()
     mode_conf = conf.get(
         {'matching': 'matching', 'optimization': 'optimization',

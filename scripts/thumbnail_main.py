@@ -289,6 +289,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    config.enable_compile_cache()
     conf = config.thumbnail_configs()
     info, logger = initialize_main_logger(prefix=f'thumb_{args.mode}',
                                           mp_queue=False)
